@@ -1,13 +1,14 @@
-"""optix_ray_tracer_tpu — a TPU-native renderer framework.
+"""optix_ray_tracer_tpu — a renderer framework in JAX for NVIDIA GPUs.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
 ``3169651074/nvidia-optix-ray-tracer`` (an OptiX 9 real-time renderer for
-time-series DEM/VTK particle simulation data).  The architecture is
-TPU-first, not a port:
+time-series DEM/VTK particle simulation data), running on one or more
+NVIDIA GPUs (README.md says where the package name comes from):
 
 * OptiX GAS/IAS hardware BVHs      -> on-device LBVH (Morton + Karras) built
-                                      with XLA sort, traversed by a stackless
-                                      wavefront kernel (``ops/``).
+                                      with XLA sort, walked per ray by one
+                                      Pallas (Triton) traversal kernel
+                                      (``ops/gpu_traverse.py``).
 * recursive megakernel shaders     -> an iterative wavefront integrator
                                       (``render/wavefront.py``) with
                                       ``lax.scan`` over bounce depth.
@@ -15,10 +16,10 @@ TPU-first, not a port:
                                       (pixel, sample, bounce).
 * SBT + program groups             -> material/geometry index arrays and
                                       vectorized masked shading.
-* SDL/GL/VK/D3D presentation       -> headless HBM-resident film + PNG/PPM
+* SDL/GL/VK/D3D presentation       -> headless device-resident film + PNG/PPM
                                       output (``render/film.py``), optional
                                       local viewer.
-* single-GPU                       -> multi-chip via ``jax.sharding.Mesh``
+* single-GPU                       -> multi-GPU via ``jax.sharding.Mesh``
                                       (``parallel/``).
 
 Scene/config compatibility: the JSON config schema, ``.vtk.series``
@@ -30,10 +31,10 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# Ray tracing needs true fp32 arithmetic: TPU matmul/einsum units default to
-# bf16 multiplication, which loses intersection precision (observed: missed
-# hits in Woop-space leaf tests).  Geometry math is tiny compared to
-# traversal, so force full precision globally.
+# Ray tracing needs true fp32 arithmetic: on the GPU, float32 matmuls and
+# einsums default to TF32 (about three decimal digits), which loses
+# intersection precision.  Geometry math is tiny compared to traversal, so
+# force full precision globally.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from optix_ray_tracer_tpu.utils import vecmath, transforms, color, colorramp  # noqa: F401,E402

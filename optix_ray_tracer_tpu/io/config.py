@@ -98,7 +98,7 @@ class RendererConfig:
     spheres: list[SphereConfig]
     triangles: list[Any]
     loop_data: LoopDataConfig
-    # --- TPU-renderer extensions (absent from reference configs => defaults)
+    # --- renderer extensions (absent from reference configs => defaults)
     spp: int = 1
     max_depth: int = 5
     background: tuple = (0.7, 0.8, 0.9)

@@ -1,13 +1,13 @@
 """Mesh-mode renderer frontend.
 
-TPU-native counterpart of ``RendererMesh`` (``src/Global/RendererMesh.cu``):
+Counterpart of ``RendererMesh`` (``src/Global/RendererMesh.cu``):
 each VTK file carries full per-particle triangle geometry; files are baked
 to a binary cache, loaded in a thread pool, and animated by shifting each
 particle along its velocity across the file's duration
 (RendererMesh.cu:379-391: shift = velocity * duration * frame/frameCount,
 composed with the global particle offset/scale).
 
-TPU-first redesign decisions (vs. the reference's structure):
+Redesign decisions (vs. the reference's structure):
 
 * Per-file geometry is padded to ONE static shape (max triangle count), so
   one compiled render program serves every animation file — no per-file
@@ -16,8 +16,8 @@ TPU-first redesign decisions (vs. the reference's structure):
   vertex buffer (a gather + multiply-add), replacing the reference's
   CPU transform loop + pinned-memory H2D copy + IAS refit
   (RendererMesh.cu:379-397, RendererImpl.cu:210-242).
-* The per-frame acceleration structure is a fresh LBVH build (jitted,
-  device-resident) instead of an OptiX refit.
+* The acceleration structure is a device-resident LBVH, built per file
+  and refitted per frame (jitted), the reference's build/refit policy.
 """
 
 from __future__ import annotations

@@ -2,9 +2,9 @@
 
 These replace the OptiX built-in sphere / triangle intersectors the reference
 relies on (``RendererImpl.cu:294-314`` loads
-``OPTIX_PRIMITIVE_TYPE_SPHERE/TRIANGLE`` IS modules).  On TPU every test is a
-dense, regular batch: a block of rays against a block of primitives, all VPU
-element-wise math with reductions — no divergence, no pointers.
+``OPTIX_PRIMITIVE_TYPE_SPHERE/TRIANGLE`` IS modules) with dense, regular
+batches: a block of rays against a block of primitives, element-wise math
+with reductions.
 
 Two layers:
 
@@ -154,8 +154,9 @@ def intersect_scene_bruteforce(scene: Scene, o, d, t_min=DEFAULT_T_MIN,
     """Nearest hit by streaming all primitives past all rays.
 
     lax.scan over primitive chunks keeps peak memory at (R, chunk) while XLA
-    pipelines the chunk loads from HBM.  This is the correctness oracle; the
-    LBVH path (``ops/traverse.py``) must agree with it exactly.
+    pipelines the chunk loads from device memory.  This is the correctness oracle; the
+    BVH engines (``ops/traverse.py``, ``ops/gpu_traverse.py``) must agree
+    with it up to exact fp ties.
     """
     shape = o.shape[:-1]
     o2 = o.reshape(-1, 3)
@@ -208,15 +209,6 @@ def intersect_scene_bruteforce(scene: Scene, o, d, t_min=DEFAULT_T_MIN,
         hit, _ = jax.lax.scan(tri_step, hit, blocks)
 
     return jax.tree.map(lambda x: x.reshape(shape + x.shape[1:]), hit)
-
-
-def shading_frame_fn(intersector):
-    """The shading entry the integrators should call: an intersector
-    that defines its own ``shading_frame`` shades its hits (the TLAS
-    adapter's lazy instanced gathers, ops/tlas.py); everything else
-    takes the scene-table path below."""
-    fn = getattr(intersector, "shading_frame", None)
-    return fn if fn is not None else shading_frame
 
 
 def shading_frame(scene: Scene, o, d, hit: Hit):

@@ -6,10 +6,10 @@ Two orthogonal sharding axes, composable on a 2D device mesh:
 
 * TILE sharding ("dp" analog): the pixel grid splits into row bands, one per
   device along the ``tile`` axis; each device traces only its band.  Scene,
-  BVH, and materials are replicated (scenes fit HBM; the framebuffer is the
-  big thing).  No collective needed — the output image is laid out sharded.
+  BVH, and materials are replicated (scenes fit device memory; the
+  framebuffer is the big thing).  No collective needed — the output image is laid out sharded.
 * SAMPLE sharding ("sp" analog): samples-per-pixel split along the
-  ``sample`` axis; partial accumulations merge with one ``psum`` over ICI.
+  ``sample`` axis; partial accumulations merge with one ``psum``.
 
 Determinism is exact under any mesh shape: the counter-based RNG keys off
 GLOBAL (pixel_id, sample_index), which the shards compute from their mesh
@@ -103,8 +103,6 @@ def render_sharded(scene, materials, camera, width: int, height: int,
     replicated = P()
 
     def shard_fn(scene, materials, camera, intersector, env):
-        from optix_ray_tracer_tpu.ops.raster import camera_tile_layout
-
         tile_idx = jax.lax.axis_index("tile")
         sample_idx = jax.lax.axis_index("sample")
         spp_offset = sample_idx * spp_per
@@ -112,12 +110,6 @@ def render_sharded(scene, materials, camera, width: int, height: int,
         # GLOBAL pixel ids -> sharding-invariant RNG
         pixel_id = (tile_idx * npix
                     + jnp.arange(npix, dtype=jnp.int32)).astype(jnp.int32)
-        # raster-route the band's camera wave when the band tiles
-        # cleanly (bit-identical to the full-frame raster schedule —
-        # ops/raster.py orders pairs globally); else marcher fallback
-        band_tiles = camera_tile_layout(intersector, camera, 1,
-                                        rows_per, width)
-        band_point = camera.center if band_tiles is not None else None
 
         def sample_step(acc, s_local):
             o, d = _tile_rays(camera, width, height, rows_per, tile_idx,
@@ -126,14 +118,13 @@ def render_sharded(scene, materials, camera, width: int, height: int,
             radiance, alb, nrm = wavefront.trace(
                 scene, materials, o, d, pixel_id,
                 spp_offset + s_local, seed, background_a, max_depth,
-                intersector, env, sampler=sampler,
-                cam_point=band_point, cam_tiles=band_tiles)
+                intersector, env, sampler=sampler)
             return (acc[0] + radiance, acc[1] + alb, acc[2] + nrm), None
 
         z = jnp.zeros((npix, 3), jnp.float32)
         acc, _ = jax.lax.scan(sample_step, (z, z, z),
                               jnp.arange(spp_per, dtype=jnp.int32))
-        # merge the sample axis over ICI
+        # merge the sample axis
         acc = jax.lax.psum(acc, axis_name="sample")
         return tuple((a / spp).reshape(rows_per, width, 3) for a in acc)
 
@@ -148,7 +139,7 @@ def render_sharded(scene, materials, camera, width: int, height: int,
         # code.  The guarantee the checker would give is covered by tests
         # instead: tests/test_sharding.py asserts bit-identical images vs
         # single-device execution across mesh shapes for BOTH the
-        # brute-force and the production block-march intersectors
+        # brute-force and the production traversal intersectors
         check_vma=False)
     img, alb, nrm = fn(scene, materials, camera, intersector, env)
     if want_guides:
@@ -187,17 +178,12 @@ def render_path_sharded(scene, materials, lights, camera, width: int,
 
     def shard_fn(scene, materials, lights, camera, intersector, env,
                  textures):
-        from optix_ray_tracer_tpu.ops.raster import camera_tile_layout
-
         tile_idx = jax.lax.axis_index("tile")
         sample_idx = jax.lax.axis_index("sample")
         spp_offset = sample_idx * spp_per
         npix = rows_per * width
         pixel_id = (tile_idx * npix
                     + jnp.arange(npix, dtype=jnp.int32)).astype(jnp.int32)
-        band_tiles = camera_tile_layout(intersector, camera, 1,
-                                        rows_per, width)
-        band_point = camera.center if band_tiles is not None else None
 
         def sample_step(acc, s_local):
             o, d = _tile_rays(camera, width, height, rows_per, tile_idx,
@@ -206,8 +192,7 @@ def render_path_sharded(scene, materials, lights, camera, width: int,
             radiance, alb, nrm = trace_path(
                 scene, materials, lights, o, d, pixel_id,
                 spp_offset + s_local, seed, background_a, max_depth,
-                intersector, env, textures, sampler=sampler,
-                cam_point=band_point, cam_tiles=band_tiles)
+                intersector, env, textures, sampler=sampler)
             return (acc[0] + radiance, acc[1] + alb, acc[2] + nrm), None
 
         z = jnp.zeros((npix, 3), jnp.float32)
@@ -242,8 +227,7 @@ def render_restir_sharded(scene, materials, lights, camera, width: int,
 
     Hybrid sharding, chosen to fit what each stage IS: the two RAY
     stages (primary intersect, winner shadow ray) run under ``shard_map``
-    in row bands because the Pallas block-march kernel cannot be
-    auto-partitioned; the resample/reuse math between them is pure lane
+    in row bands because the traversal kernel cannot be auto-partitioned; the resample/reuse math between them is pure lane
     arithmetic plus small image gathers, so it runs as ONE global
     program and GSPMD partitions it — spatial taps that cross band edges
     and the anywhere-to-anywhere temporal reprojection gathers become
@@ -272,7 +256,6 @@ def render_restir_sharded(scene, materials, lights, camera, width: int,
     if intersector is None:
         from optix_ray_tracer_tpu.ops.traverse import BruteForceIntersector
         intersector = BruteForceIntersector()
-    incoh = getattr(intersector, "for_incoherent", lambda: intersector)()
     background = jnp.asarray(background, jnp.float32)
     frame = jnp.asarray(frame, jnp.int32)
     from optix_ray_tracer_tpu.utils.vecmath import INF
@@ -303,14 +286,15 @@ def render_restir_sharded(scene, materials, lights, camera, width: int,
     rgb, wdir, dist, live, Wf = R._shade_terms(
         packed, li2, u22, u32, W2, point, n_unit, albedo, active)
 
-    def shadow(scene, incoh, origin, wdir, t_max):
-        return incoh.any_hit(scene, origin, wdir, t_min=1e-4, t_max=t_max)
+    def shadow(scene, intersector, origin, wdir, t_max):
+        return intersector.any_hit(scene, origin, wdir, t_min=1e-4,
+                                   t_max=t_max)
 
     occluded = jax.shard_map(
         shadow, mesh=mesh,
         in_specs=(P(), P(), P("tile", None), P("tile", None), P("tile")),
         out_specs=P("tile"), check_vma=False)(
-        scene, incoh, point + n_unit * 1e-3, wdir,
+        scene, intersector, point + n_unit * 1e-3, wdir,
         jnp.where(live, dist - 2e-3, 0.0))
 
     return R._compose(base, rgb, Wf, live, occluded, li2, u22, u32, m2,

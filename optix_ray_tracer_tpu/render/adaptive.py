@@ -2,9 +2,9 @@
 
 The reference's noise strategy is fixed 1 spp + the AI denoiser
 (`/root/reference/docs/technical-details.md:295-297`); this framework's
-progressive mode accumulates uniform samples.  On TPU the ray marcher is
-the measured cost floor (PERF.md: ~1 Mrays/s incoherent), so the remaining
-end-to-end lever is issuing FEWER rays for the same image quality.  This
+progressive mode accumulates uniform samples.  Ray traversal is the
+dominant cost, so an end-to-end lever is issuing FEWER rays for the same
+image quality.  This
 module allocates each progressive batch to the pixels with the highest
 estimated error instead of uniformly:
 

@@ -66,15 +66,13 @@ def _cosine_sample(n, pixel_id, sample, bounce, seed, mode="pcg"):
 
 
 @partial(jax.jit, static_argnames=("max_depth", "rr_start", "want_aux",
-                                   "sampler", "restir_direct",
-                                   "cam_tiles"))
+                                   "sampler", "restir_direct"))
 def trace_path(scene: Scene, materials: MaterialTable, lights: AreaLights,
                origins, directions, pixel_id, sample, seed, background,
                max_depth: int = 8, intersector=None, env=None,
                textures=None, rr_start: int = 3, clamp: float = 0.0,
                want_aux: bool = False, sampler: str = "pcg",
-               restir_direct: bool = False, first_hit=None,
-               cam_point=None, cam_tiles=None):
+               restir_direct: bool = False, first_hit=None):
     """Trace a wavefront with NEE+MIS.  Returns (radiance, albedo_g, normal_g);
     with ``want_aux`` also (t (R,), prim_id (R,) int32) of the PRIMARY hit
     (INF / -1 on miss or sphere hit) — the depth/id buffers the temporal
@@ -105,46 +103,6 @@ def trace_path(scene: Scene, materials: MaterialTable, lights: AreaLights,
     if intersector is None:
         from optix_ray_tracer_tpu.ops.traverse import BruteForceIntersector
         intersector = BruteForceIntersector()
-    # probe-sorted variant for incoherent waves: bounce >= 1 extension
-    # rays, env-NEE occlusion, and — without a camera layout — light
-    # shadow rays (ops/march.py sort_mode)
-    incoh = getattr(intersector, "for_incoherent", lambda: intersector)()
-    bounce_intersect = incoh.intersect
-    shadow_any_hit = incoh.any_hit
-    if (cam_point is not None and cam_tiles is not None
-            and hasattr(intersector, "intersect_bundled")):
-        # AREA-LIGHT shadow segments route through the bundle engine
-        # (ops/raster.py): finite [hit point -> light point] segments
-        # from a tile's compact origin patch bin to very few pairs
-        # (measured 6.8k pairs / 19.1 Mrays/s vs the marcher's 12.0 on
-        # the bench scene's NEE wave).  Bounce EXTENSION rays and
-        # env-NEE occlusion keep the marcher: their t_max is infinite
-        # and directions hemispherical, so conservative binning pairs
-        # with most of the scene (measured 349k pairs at W=1024 —
-        # 3.5x the marcher's whole cost in schedule floor alone) and
-        # overflows into the fallback anyway.  Both measurements in
-        # PERF.md round-4.
-        import os
-        # cluster-count gate: with few clusters the marcher is already
-        # trivial (Cornell, C=1: measured 1.43 vs 1.40 spp/s — binning
-        # prep is pure overhead); the bundle win appears when the
-        # marcher's per-visit picks dominate (C ~ hundreds)
-        enough_clusters = getattr(
-            getattr(intersector, "clusters", None), "num_clusters", 0) >= 16
-        if (os.environ.get("ORT_BUNDLE_NEE", "1") != "0"
-                and enough_clusters):
-            from optix_ray_tracer_tpu.ops.raster import (
-                make_tiled_bundle_intersect,
-            )
-            shadow_any_hit = make_tiled_bundle_intersect(
-                intersector, *cam_tiles).any_hit
-        # bounce extension rays stay on the marcher: the two-pass
-        # short-ray-first bundle route (intersect_short_first) was
-        # measured a LOSS on both endpoints — neutral on the open
-        # bench scene (escaping rays pay the full marcher tail) and
-        # 1.47x slower on config-5's interior (0.079 vs 0.115 spp/s;
-        # the t-capped binning still pairs hemispherical blocks with
-        # too much of the scene).  PERF.md round-4.
     nrays = origins.shape[0]
     background = jnp.asarray(background, jnp.float32)
     have_lights = lights is not None and lights.count > 0
@@ -171,20 +129,14 @@ def trace_path(scene: Scene, materials: MaterialTable, lights: AreaLights,
         # emitter-hit drop — see the docstring's partition argument)
         state["prim_diff"] = jnp.zeros((nrays,), bool)
 
-    def bounce_step(s, b, ext_isect=None, ext_hit=None, ext_fn=None):
+    def bounce_step(s, b, ext_hit=None):
         alive = s["alive"]
-        # dead lanes trace with t_max=0: free in the block-march kernel
-        # (and absent from the bundle engine's block bounds)
+        # dead lanes trace with t_max=0: the traversal kernel retires them
+        # before their first node fetch
         if ext_hit is not None:
             hit = ext_hit
-        elif ext_fn is not None:
-            hit = ext_fn(scene, s["o"], s["d"],
-                         t_max=jnp.where(alive, INF, 0.0))
-        elif ext_isect is not None:
-            hit = ext_isect.intersect(
-                scene, s["o"], s["d"], t_max=jnp.where(alive, INF, 0.0))
         else:
-            hit = bounce_intersect(
+            hit = intersector.intersect(
                 scene, s["o"], s["d"], t_max=jnp.where(alive, INF, 0.0))
         missed = alive & ~hit.is_hit
         if restir_direct:
@@ -216,8 +168,8 @@ def trace_path(scene: Scene, materials: MaterialTable, lights: AreaLights,
             missed[..., None], s["throughput"] * miss_radiance * w_miss,
             0.0))
 
-        point, normal, front_face, material_id = isect.shading_frame_fn(
-            intersector)(scene, s["o"], s["d"], hit)
+        point, normal, front_face, material_id = isect.shading_frame(
+            scene, s["o"], s["d"], hit)
         n_unit = normalize(normal)
         mtype, albedo, param, emission = materials.gather(material_id)
         if textures is not None:
@@ -283,7 +235,7 @@ def trace_path(scene: Scene, materials: MaterialTable, lights: AreaLights,
                 # masked-out shadow ray traces with t_max=0 (free)
                 valid = valid & (b >= 1)
             # shadow ray (offset along the light direction; end before light)
-            occluded = shadow_any_hit(
+            occluded = intersector.any_hit(
                 scene, point + n_unit * 1e-3, wl,
                 t_min=1e-4, t_max=jnp.where(valid, dist - 2e-3, 0.0))
             visible = valid & ~occluded
@@ -306,10 +258,8 @@ def trace_path(scene: Scene, materials: MaterialTable, lights: AreaLights,
             cos_e = dot(we, n_unit)
             valid_e = shading_alive & is_diffuse & (cos_e > 0.0) \
                 & (pdf_e > 0.0)
-            # occlusion to infinity (the env is behind everything) —
-            # marcher, not bundles: an infinite t_max defeats the
-            # bundle binning's segment prune (see routing note above)
-            occ_e = incoh.any_hit(
+            # occlusion to infinity (the env is behind everything)
+            occ_e = intersector.any_hit(
                 scene, point + n_unit * 1e-3, we,
                 t_min=1e-4, t_max=jnp.where(valid_e, INF, 0.0))
             vis_e = valid_e & ~occ_e
@@ -364,8 +314,7 @@ def trace_path(scene: Scene, materials: MaterialTable, lights: AreaLights,
         # From bounce rr_start on, continue with p = max-channel throughput
         # (floored so dark paths still terminate in finite expectation) and
         # compensate survivors by 1/p.  Killed lanes trace with t_max=0 next
-        # bounce, so on the block-march kernel RR converts deep-path work
-        # into immediate block exits.
+        # bounce, which the traversal kernel retires at once.
         if rr_start < max_depth:
             u_rr = rng.uniform4(pixel_id, sample, b, seed ^ _DIM_RR,
                                 sampler)[0]
@@ -387,16 +336,8 @@ def trace_path(scene: Scene, materials: MaterialTable, lights: AreaLights,
                     albedo_g=albedo_g, normal_g=normal_g, **aux,
                     **extra), None
 
-    # bounce 0 (coherent camera rays) unrolled with the morton-sorted
-    # intersector — or the tile-raster engine when the caller supplies a
-    # camera layout (t/prim bit-exact, u/v to fp order; ops/raster.py);
-    # bounces >= 1 scanned with the probe-sorted one
-    cam_fn = None
-    if cam_point is not None and cam_tiles is not None:
-        from optix_ray_tracer_tpu.ops.raster import make_camera_intersect
-        cam_fn = make_camera_intersect(intersector, cam_point, *cam_tiles)
-    state, _ = bounce_step(state, jnp.int32(0), ext_isect=intersector,
-                           ext_hit=first_hit, ext_fn=cam_fn)
+    # bounce 0 unrolled: it may take a precomputed camera-wave hit
+    state, _ = bounce_step(state, jnp.int32(0), ext_hit=first_hit)
     if max_depth > 1:
         state, _ = jax.lax.scan(bounce_step, state,
                                 jnp.arange(1, max_depth, dtype=jnp.int32))
@@ -419,12 +360,8 @@ def render_path(scene: Scene, materials: MaterialTable, lights, camera,
                 want_aux: bool = False, sampler: str = "pcg",
                 sample_offset=0):
     """Full-frame path trace; same conventions as wavefront.render,
-    including the samples-per-wave merge (same-pixel samples share
-    block-march clusters; RNG streams are (pixel, sample, bounce)-keyed so
-    merging is exact).  Unlike the whitted wavefront (+15% measured),
-    merging is slightly NEGATIVE here (-4% on the Sponza-class config:
-    NEE shadow waves aim at per-sample light points, so merged samples do
-    not share clusters), hence the default S=1.
+    including the samples-per-wave merge (RNG streams are (pixel, sample,
+    bounce)-keyed, so merging is exact); the default is S=1.
 
     ``want_aux``: also return (t, prim) primary-hit buffers from sample 0
     (the temporal reprojector's depth/id taps, as in wavefront.render)."""
@@ -434,10 +371,6 @@ def render_path(scene: Scene, materials: MaterialTable, lights, camera,
     if spp % S:
         raise ValueError(f"samples_per_wave={S} must divide spp={spp}")
     pix_rep = jnp.tile(pixel_id, S)
-    # raster-engine camera waves when the intersector carries the tables
-    # (ops/raster.py; t/prim bit-exact, no sort/picks)
-    from optix_ray_tracer_tpu.ops.raster import camera_tile_layout
-    cam_tiles = camera_tile_layout(intersector, camera, S, height, width)
 
     def sample_step(acc, s0):
         s_vec = s0 + jnp.arange(S, dtype=jnp.int32)
@@ -458,9 +391,7 @@ def render_path(scene: Scene, materials: MaterialTable, lights, camera,
         out = trace_path(
             scene, materials, lights, o.reshape(-1, 3), d.reshape(-1, 3),
             pix_rep, samp, seed, background, max_depth, intersector, env,
-            textures, rr_start, clamp, want_aux=want_aux, sampler=sampler,
-            cam_point=camera.center if cam_tiles else None,
-            cam_tiles=cam_tiles)
+            textures, rr_start, clamp, want_aux=want_aux, sampler=sampler)
         radiance, alb, nrm = out[:3]
         nxt = (acc[0] + radiance.reshape(S, npix, 3).sum(0),
                acc[1] + alb.reshape(S, npix, 3).sum(0),

@@ -4,18 +4,17 @@ direct lighting (weighted reservoir RIS, Bitterli et al. 2020).
 Reference analog: none — the reference's only light transport is the
 background-lit Whitted tracer (``shader/Shader.cu:276-287``); this module
 extends the path-tracing side (``scene/lights.py`` NEE).  Why it matters
-here: PERF.md measures the incoherent shadow wave at the design floor of
-the block marcher, so equal-quality-for-fewer-shadow-rays is the one
-remaining lever.  ReSTIR keeps exactly ONE shadow ray per pixel per frame
-while raising the EFFECTIVE light-sample count to
-``M x history x spatial taps`` — and on this part every one of those
-extra samples is pure VPU arithmetic (no rays, no big gathers).
+here: incoherent shadow rays are the costliest wave, so
+equal-quality-for-fewer-shadow-rays is a lever.  ReSTIR keeps exactly ONE
+shadow ray per pixel per frame while raising the EFFECTIVE light-sample
+count to ``M x history x spatial taps`` — and every one of those extra
+samples is pure elementwise arithmetic (no rays, no big gathers).
 
-TPU-first design:
+Design:
 
 * candidate generation is a ``lax.scan`` over M light samples — all
-  elementwise math on (H*W,) lanes; the only gathers index the (L,)-row
-  light table, which is VMEM-resident at any realistic light count;
+  elementwise math on (H*W,) lanes; the only gathers index the small
+  (L,)-row light table;
 * reservoirs are SoA image arrays ``(li, u2, u3, W, m)`` carried across
   frames exactly like the SVGF temporal state (``render/temporal.py``);
 * temporal reuse reprojects hit points with the same closed-form camera
@@ -81,9 +80,9 @@ def empty_reservoir_state(width: int, height: int) -> dict:
 
 
 # below this light count, per-candidate table rows come from a one-hot
-# matmul (MXU) instead of a row gather — measured faster on-chip, and
-# either way the SIX per-field gathers consolidate into ONE row lookup
-# (the gathers, not the math, dominated the measured candidate cost)
+# matmul instead of a row gather (not yet measured against a plain gather
+# on the GPU; ROADMAP.md), and either way the SIX per-field gathers
+# consolidate into ONE row lookup
 DENSE_LOOKUP_MAX = 128
 
 
@@ -97,9 +96,7 @@ def _pack_lights(lights: AreaLights):
 
 def _lookup(packed, li):
     """Row(s) ``li`` of the packed table — one-hot matmul for small
-    tables (pointer-chasing is the measured bottleneck on this part,
-    PERF.md ~5 GB/s gather ceiling; the MXU is idle here), single gather
-    otherwise."""
+    tables, single gather otherwise."""
     L = packed.shape[0]
     if L <= DENSE_LOOKUP_MAX:
         oh = (li[..., None] == jnp.arange(L, dtype=li.dtype)
@@ -258,7 +255,6 @@ def render_restir(scene: Scene, materials: MaterialTable,
     if intersector is None:
         from optix_ray_tracer_tpu.ops.traverse import BruteForceIntersector
         intersector = BruteForceIntersector()
-    incoh = getattr(intersector, "for_incoherent", lambda: intersector)()
     background = jnp.asarray(background, jnp.float32)
     frame = jnp.asarray(frame, jnp.int32)
 
@@ -269,8 +265,7 @@ def render_restir(scene: Scene, materials: MaterialTable,
     hit = intersector.intersect(scene, o, d, t_max=jnp.full((npix,), INF))
 
     point, n_unit, albedo, active, base, albedo_g, normal_g = _gbuffer(
-        scene, materials, o, d, hit, textures, env, background,
-        intersector=intersector)
+        scene, materials, o, d, hit, textures, env, background)
 
     packed = _pack_lights(lights)
     li2, u22, u32, W2, m2, act2, t2, n2 = _resample(
@@ -281,22 +276,18 @@ def render_restir(scene: Scene, materials: MaterialTable,
     # ---- shade the winner: ONE shadow ray per pixel ------------------------
     rgb, wdir, dist, live, Wf = _shade_terms(packed, li2, u22, u32, W2,
                                              point, n_unit, albedo, active)
-    occluded = incoh.any_hit(
+    occluded = intersector.any_hit(
         scene, point + n_unit * 1e-3, wdir,
         t_min=1e-4, t_max=jnp.where(live, dist - 2e-3, 0.0))
     return _compose(base, rgb, Wf, live, occluded, li2, u22, u32, m2,
                     act2, t2, n2, albedo_g, normal_g, width, height)
 
 
-def _gbuffer(scene, materials, o, d, hit, textures, env, background,
-             intersector=None):
+def _gbuffer(scene, materials, o, d, hit, textures, env, background):
     """Shading inputs at the primary hits — pure lane math + table
     gathers, no rays.  Shared by :func:`render_restir` and the sharded
-    path (``parallel.sharding.render_restir_sharded``).  ``intersector``
-    routes TLAS adapters' lazy instanced shading
-    (ops.intersect.shading_frame_fn)."""
-    point, normal, _, material_id = isect.shading_frame_fn(intersector)(
-        scene, o, d, hit)
+    path (``parallel.sharding.render_restir_sharded``)."""
+    point, normal, _, material_id = isect.shading_frame(scene, o, d, hit)
     n_unit = normalize(normal)
     mtype, albedo, _, emission = materials.gather(material_id)
     if textures is not None:
@@ -495,7 +486,6 @@ def render_restir_gi(scene: Scene, materials: MaterialTable,
     if intersector is None:
         from optix_ray_tracer_tpu.ops.traverse import BruteForceIntersector
         intersector = BruteForceIntersector()
-    incoh = getattr(intersector, "for_incoherent", lambda: intersector)()
     background = jnp.asarray(background, jnp.float32)
     frame = jnp.asarray(frame, jnp.int32)
 
@@ -507,8 +497,7 @@ def render_restir_gi(scene: Scene, materials: MaterialTable,
     hit = intersector.intersect(scene, o, d, t_max=jnp.full((npix,), INF))
 
     point, n_unit, albedo, active, base, albedo_g, normal_g = _gbuffer(
-        scene, materials, o, d, hit, textures, env, background,
-        intersector=intersector)
+        scene, materials, o, d, hit, textures, env, background)
 
     packed = _pack_lights(lights)
     li2, u22, u32, W2, m2, act2, t2, n2 = _resample(
@@ -518,7 +507,7 @@ def render_restir_gi(scene: Scene, materials: MaterialTable,
 
     rgb, wdir, dist, live, Wf = _shade_terms(packed, li2, u22, u32, W2,
                                              point, n_unit, albedo, active)
-    occluded = incoh.any_hit(
+    occluded = intersector.any_hit(
         scene, point + n_unit * 1e-3, wdir,
         t_min=1e-4, t_max=jnp.where(live, dist - 2e-3, 0.0))
     img, alb_img, nrm_img, new_state = _compose(

@@ -1,16 +1,16 @@
 """Interactive preview — the headless analog of the reference's SDL window.
 
 The reference presents via GL/VK/D3D swapchains with WASD+mouse input
-(``src/GraphicsAPI/*``).  A TPU pod has no display, so the viewer serves an
-MJPEG stream over HTTP (view in any browser) with keyboard-ish control via
+(``src/GraphicsAPI/*``).  A headless accelerator host has no display, so
+the viewer serves a multipart image stream over HTTP (view in any browser,
+PNG parts) with keyboard-ish control via
 HTTP endpoints — same camera semantics (FlyCameraController wraps the exact
 reference math: yaw/pitch with pitch clamp, WASD planar movement,
 wheel-speed).
 
 Endpoints:
   GET /            minimal HTML page with the stream + key bindings
-  GET /stream      multipart/x-mixed-replace MJPEG (PNG parts if no JPEG
-                   encoder is importable)
+  GET /stream      multipart/x-mixed-replace stream of PNG parts
   GET /key?k=w     press a movement key (w/a/s/d/space/shift)
   GET /look?dx=&dy=  mouse-look deltas
   GET /wheel?d=1   mouse wheel: movement speed up/down
@@ -60,21 +60,10 @@ document.addEventListener('mousemove', e=>{
 
 
 def _encode_frame(rgba: np.ndarray) -> tuple[bytes, bytes]:
-    """uint8 (H, W, 3|4) -> (bytes, multipart content-type header value).
-
-    JPEG via Pillow when importable (a real MJPEG stream, ~10x smaller
-    parts); lossless PNG through utils.color otherwise.
-    """
-    try:
-        import io
-
-        from PIL import Image
-    except ImportError:
-        from optix_ray_tracer_tpu.utils.color import png_bytes
-        return png_bytes(rgba), b"image/png"
-    buf = io.BytesIO()
-    Image.fromarray(rgba[..., :3]).save(buf, "JPEG", quality=85)
-    return buf.getvalue(), b"image/jpeg"
+    """uint8 (H, W, 3|4) -> (bytes, multipart content-type header value):
+    lossless PNG parts through utils.color."""
+    from optix_ray_tracer_tpu.utils.color import png_bytes
+    return png_bytes(rgba), b"image/png"
 
 
 class ViewerServer:

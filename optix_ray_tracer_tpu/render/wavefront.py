@@ -1,11 +1,10 @@
-"""Wavefront integrator — the TPU-native replacement for the reference's
-recursive OptiX megakernel.
+"""Wavefront integrator — the replacement for the reference's recursive
+OptiX megakernel.
 
 The reference shades by device-side recursion: closest-hit re-invokes
 ``optixTrace`` up to depth 5 and multiplies the returned radiance by the
 surface albedo on unwind (``shader/Shader.cu:229-241``).  XLA cannot
-recurse, and a TPU earns throughput from big regular batches — so the
-integrator is an *iterative wavefront*: a ``lax.scan`` over bounce depth
+recurse, so the integrator is an *iterative wavefront*: a ``lax.scan`` over bounce depth
 carrying SoA ray state (origin, direction, throughput, radiance, alive mask)
 for the whole batch.  The unwind-multiply becomes a running ``throughput``
 product, mathematically identical:
@@ -62,7 +61,7 @@ def scatter(materials: MaterialTable, material_id, d_in, normal, front_face,
 
     Vectorized replacement for the material switch in ``closesthitImpl``
     (shader/Shader.cu:164-213): every BSDF branch is evaluated masked and
-    blended — no divergence on the VPU.
+    blended.
 
     Returns (new_dir (R,3) unit, attenuation (R,3), emitted (R,3),
     terminate (R,) — True for EMISSIVE hits which end the path).
@@ -122,24 +121,18 @@ def _default_intersector():
     return BruteForceIntersector()
 
 
-@partial(jax.jit, static_argnames=("max_depth", "want_aux", "sampler",
-                                   "cam_tiles"))
+@partial(jax.jit, static_argnames=("max_depth", "want_aux", "sampler"))
 def trace(scene: Scene, materials: MaterialTable, origins, directions,
           pixel_id, sample, seed, background,
           max_depth: int = DEFAULT_MAX_DEPTH,
           intersector=None, env=None, want_aux: bool = False,
-          sampler: str = "pcg", cam_point=None, cam_tiles=None):
+          sampler: str = "pcg"):
     """Trace a wavefront of rays to completion.
 
     origins/directions: (R, 3); pixel_id: (R,) int32; sample: scalar int;
     seed: scalar int; background: (3,) linear color.  ``intersector`` is a
-    pytree (BVHIntersector / BruteForceIntersector); None = brute force.
-
-    ``cam_point``/``cam_tiles`` ((S, H, W, th, tw), static): when set and
-    the intersector carries raster tables, bounce 0 routes through the
-    tile-raster engine (ops/raster.py) instead of the sorted march —
-    t/prim bit-exact, u/v to fp accumulation order, no coherence sort,
-    no in-kernel picks.
+    pytree (TraversalIntersector / BVHIntersector / BruteForceIntersector);
+    None = brute force.
 
     Returns (radiance (R,3) linear, albedo_guide (R,3), normal_guide (R,3));
     with ``want_aux`` also (t (R,), prim_id (R,) int32) of the PRIMARY hit
@@ -148,22 +141,6 @@ def trace(scene: Scene, materials: MaterialTable, origins, directions,
     """
     if intersector is None:
         intersector = _default_intersector()
-    intersect_fn = intersector.intersect
-    # bounces >= 1 are incoherent: use the probe-sorted intersector
-    # variant (ops/march.py sort_mode) when the intersector offers one
-    incoh = getattr(intersector, "for_incoherent", lambda: intersector)()
-    intersect_incoh_fn = incoh.intersect
-    if cam_point is not None and cam_tiles is not None:
-        from optix_ray_tracer_tpu.ops.raster import make_camera_intersect
-        # bounce EXTENSION rays stay on the marcher: their t_max is
-        # infinite and directions hemispherical, so bundle binning
-        # (ops/raster.py bundle_query) pairs with most of the scene and
-        # overflows — measured 349k pairs at W=1024 vs the marcher's
-        # 9.9 Mrays/s on the bench bounce wave (PERF.md round-4).  The
-        # bundle engine serves finite NEE shadow segments in the path
-        # tracer instead.
-        intersect_fn = make_camera_intersect(intersector, cam_point,
-                                             *cam_tiles)
     nrays = origins.shape[0]
     background = jnp.asarray(background, jnp.float32)
 
@@ -179,11 +156,11 @@ def trace(scene: Scene, materials: MaterialTable, origins, directions,
         state["t_g"] = jnp.full((nrays,), INF, jnp.float32)
         state["prim_g"] = jnp.full((nrays,), -1, jnp.int32)
 
-    def bounce_step(state, b, isect_fn=None):
+    def bounce_step(state, b):
         alive = state["alive"]
-        # dead lanes trace with t_max=0: in the block-march kernel they
-        # request no clusters, so mostly-dead blocks exit immediately
-        hit = (isect_fn or intersect_incoh_fn)(
+        # dead lanes trace with t_max=0: the traversal kernel retires them
+        # before their first node fetch
+        hit = intersector.intersect(
             scene, state["o"], state["d"],
             t_max=jnp.where(alive, INF, 0.0))
         missed = alive & ~hit.is_hit
@@ -196,8 +173,8 @@ def trace(scene: Scene, materials: MaterialTable, origins, directions,
         radiance = state["radiance"] + jnp.where(
             missed[..., None], state["throughput"] * miss_radiance, 0.0)
 
-        point, normal, front_face, material_id = isect.shading_frame_fn(
-            intersector)(scene, state["o"], state["d"], hit)
+        point, normal, front_face, material_id = isect.shading_frame(
+            scene, state["o"], state["d"], hit)
         new_dir, attenuation, emission, emissive_hit = scatter(
             materials, material_id, state["d"], normal, front_face,
             pixel_id, sample, b, seed, sampler)
@@ -235,12 +212,8 @@ def trace(scene: Scene, materials: MaterialTable, origins, directions,
                     alive=alive, albedo_g=albedo_g, normal_g=normal_g,
                     **aux), None
 
-    # bounce 0 (coherent camera rays) unrolled with the morton-sorted
-    # intersector; bounces >= 1 scanned with the probe-sorted one
-    state, _ = bounce_step(state, jnp.int32(0), isect_fn=intersect_fn)
-    if max_depth > 1:
-        state, _ = jax.lax.scan(bounce_step, state,
-                                jnp.arange(1, max_depth, dtype=jnp.int32))
+    state, _ = jax.lax.scan(bounce_step, state,
+                            jnp.arange(max_depth, dtype=jnp.int32))
     if want_aux:
         return (state["radiance"], state["albedo_g"], state["normal_g"],
                 (state["t_g"], state["prim_g"]))
@@ -248,8 +221,7 @@ def trace(scene: Scene, materials: MaterialTable, origins, directions,
 
 
 def _default_samples_per_wave(spp: int) -> int:
-    """Largest divisor of spp among (4, 2, 1) — merged samples of the
-    same pixel share block-march clusters, shrinking the block union."""
+    """Largest divisor of spp among (4, 2, 1): fewer, wider waves."""
     for s in (4, 2, 1):
         if spp % s == 0:
             return s
@@ -270,16 +242,13 @@ def render(scene: Scene, materials: MaterialTable, camera,
     """Render a full frame: spp samples per pixel, accumulated in linear space.
 
     The reference renders 1 spp/frame at pixel centers and relies on the AI
-    denoiser; we default to jittered progressive accumulation (the TPU-native
-    noise strategy) but spp=1, jitter=False reproduces the reference's
-    sampling pattern.
+    denoiser; we default to jittered progressive accumulation, but spp=1,
+    jitter=False reproduces the reference's sampling pattern.
 
     ``samples_per_wave`` merges S samples of every pixel into one wavefront
-    (must divide spp; default: largest of 4/2/1 that does).  A merged wave's
-    same-pixel rays are near-identical, so coherence-sorted 128-ray blocks
-    cover fewer pixels and march fewer clusters.  RNG streams are keyed by
-    (pixel, sample, bounce), so results match the unmerged renderer up to
-    fp accumulation order.
+    (must divide spp; default: largest of 4/2/1 that does).  RNG streams are
+    keyed by (pixel, sample, bounce), so results match the unmerged renderer
+    up to fp accumulation order.
 
     Returns (image (H, W, 3) linear, albedo (H, W, 3), normal (H, W, 3)).
     """
@@ -291,10 +260,6 @@ def render(scene: Scene, materials: MaterialTable, camera,
     if spp % S:
         raise ValueError(f"samples_per_wave={S} must divide spp={spp}")
     pix_rep = jnp.tile(pixel_id, S)                      # (S*npix,)
-    # raster-engine camera waves when the intersector carries the tables
-    # (ops/raster.py; t/prim bit-exact, no sort/picks)
-    from optix_ray_tracer_tpu.ops.raster import camera_tile_layout
-    cam_tiles = camera_tile_layout(intersector, camera, S, height, width)
 
     def sample_step(acc, s0):
         s_vec = s0 + jnp.arange(S, dtype=jnp.int32)      # (S,)
@@ -315,9 +280,7 @@ def render(scene: Scene, materials: MaterialTable, camera,
         out = trace(
             scene, materials, o.reshape(-1, 3), d.reshape(-1, 3),
             pix_rep, samp, seed, background, max_depth, intersector, env,
-            want_aux=want_aux, sampler=sampler,
-            cam_point=camera.center if cam_tiles else None,
-            cam_tiles=cam_tiles)
+            want_aux=want_aux, sampler=sampler)
         radiance, albedo_g, normal_g = out[:3]
         nxt = (acc[0] + radiance.reshape(S, npix, 3).sum(0),
                acc[1] + albedo_g.reshape(S, npix, 3).sum(0),

@@ -1,11 +1,11 @@
-"""Material table — the TPU-native replacement for OptiX SBT hit records.
+"""Material table — the replacement for OptiX SBT hit records.
 
 The reference dispatches shading through 6 program groups + per-instance SBT
 records holding a union of {rough{albedo} | metal{albedo, fuzz}}
-(``include/Global/Shader.cuh:43-70``).  On TPU there is no function-pointer
+(``include/Global/Shader.cuh:43-70``).  Here there is no function-pointer
 dispatch: materials live in one SoA table and the shade stage gathers rows by
 ``material_id`` and blends BSDF branches with masks (``jnp.where``), which
-keeps the whole wavefront on the VPU.
+keeps the whole wavefront in elementwise XLA code.
 
 Parity types: ROUGH (Lambertian), METAL (mirror + fuzz).  Extension types
 required by the benchmark configs (BASELINE.md): DIELECTRIC (glass) and

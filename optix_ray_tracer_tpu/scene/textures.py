@@ -101,15 +101,20 @@ def checker_texture(res: int = 128, tiles: int = 8,
 
 
 def load_texture(path: str) -> np.ndarray:
-    """Read an image file as a linear-space float texture.
-
-    PPM natively; PNG/JPEG via Pillow when importable."""
-    if path.lower().endswith(".ppm"):
+    """Read an image file as a linear-space float texture: binary PPM, or
+    8-bit PNG (``utils.color.read_png``).  Other formats raise ValueError."""
+    lower = path.lower()
+    if lower.endswith(".ppm"):
         return read_ppm_texture(path)
-    from PIL import Image
-
-    from optix_ray_tracer_tpu.utils.color import srgb_to_linear
-    img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+    if not lower.endswith(".png"):
+        raise ValueError(f"texture {path}: only binary PPM (.ppm) and 8-bit "
+                         "PNG (.png) images are read")
+    from optix_ray_tracer_tpu.utils.color import read_png, srgb_to_linear
+    with open(path, "rb") as f:
+        img = read_png(f.read())
+    if img.shape[-1] < 3:          # grey / grey+alpha -> RGB
+        img = np.repeat(img[..., :1], 3, axis=-1)
+    img = img[..., :3].astype(np.float32) / 255.0
     return np.asarray(srgb_to_linear(jnp.asarray(img)), np.float32)
 
 

@@ -73,8 +73,8 @@ def write_ppm(path, rgb_uint8: np.ndarray) -> None:
 def png_bytes(rgba_uint8: np.ndarray) -> bytes:
     """Encode an image as PNG in memory (zlib + struct only, no imaging deps).
 
-    Replaces the reference's swapchain present path — on TPU the framebuffer
-    is fetched from HBM once per flush and encoded on host.
+    Replaces the reference's swapchain present path — the framebuffer is
+    fetched from the device once per flush and encoded on host.
     """
     import struct
     import zlib
@@ -102,3 +102,56 @@ def write_png(path, rgba_uint8: np.ndarray) -> None:
     """Write an image as a PNG file (see :func:`png_bytes`)."""
     with open(path, "wb") as f:
         f.write(png_bytes(rgba_uint8))
+
+
+def read_png(data: bytes) -> np.ndarray:
+    """Decode an 8-bit, non-interlaced grey/grey+alpha/RGB/RGBA PNG to an
+    (H, W, C) uint8 array (zlib + struct only, the inverse of
+    :func:`png_bytes`).  Other PNG kinds raise ValueError."""
+    import struct
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, idat, ihdr = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, color_type, _, _, interlace = ihdr
+    channels = {0: 1, 2: 3, 4: 2, 6: 4}.get(color_type)
+    if depth != 8 or channels is None or interlace:
+        raise ValueError(
+            f"unsupported PNG (bit depth {depth}, color type {color_type}, "
+            f"interlace {interlace}); use an 8-bit PNG or a binary PPM")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, w * channels + 1)
+    ftype = raw[:, 0]
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"bad PNG filter type {ftype.max()}")
+    line = raw[:, 1:].reshape(h, w, channels)
+    if not ftype.any():
+        return line.copy()
+    # A filter predicts a pixel from its reconstructed left (a), up (b) and
+    # up-left (c) neighbours, so the pixels of one anti-diagonal x + y = k
+    # depend only on diagonals k-1 and k-2: decode a diagonal at a time.
+    line = line.astype(np.int32)
+    out = np.zeros((h + 1, w + 1, channels), np.int32)   # zero top/left rim
+    for k in range(w + h - 1):
+        y = np.arange(max(0, k - w + 1), min(h, k + 1))
+        x = k - y
+        a, b, c = out[y + 1, x], out[y, x + 1], out[y, x]
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = np.choose(ftype[y][:, None], [0, a, b, (a + b) >> 1, paeth])
+        out[y + 1, x + 1] = (line[y, x] + pred) & 255
+    return out[1:, 1:].astype(np.uint8)

@@ -3,13 +3,13 @@
 The reference maps ``debug-mode`` to GPU validation layers: OptiX
 validation mode (``src/Global/RendererImpl.cu:14``), Vulkan validation
 layers + debug messenger (``SDL_VKWindow.cu:354-402``), D3D debug devices.
-The TPU-native equivalents are:
+The equivalents here are:
 
 * ``jax_debug_nans`` — every jitted computation re-runs eagerly on NaN
   production and raises at the producing primitive (the analog of an
   OptiX validation-mode abort on bad values);
-* acceleration-structure validation on every build/refit — each
-  triangle's AABB must be contained by its cluster's AABB (the analog of
+* acceleration-structure validation on every build/refit — every leaf
+  reachable once and every child box inside its parent's (the analog of
   OptiX validation mode's AS checks).
 
 Enabled once per process from the config flag (``__main__``), checked by
@@ -17,8 +17,6 @@ the frontends' intersector builders.
 """
 
 from __future__ import annotations
-
-import numpy as np
 
 from optix_ray_tracer_tpu.utils.logging import LOG, RendererError
 
@@ -38,46 +36,54 @@ def enable_debug_mode() -> None:
     LOG.info("debug-mode: jax_debug_nans on, accel validation on")
 
 
-def validate_clusters(clusters, tri_vertices, num_tris: int) -> None:
-    """Assert every valid triangle is inside its cluster AABB.
+def validate_accel(intersector, scene) -> None:
+    """Assert the traversal engine fits the scene it is about to trace:
 
-    ``clusters``: ops.sweep.ClusterSet; ``tri_vertices``: (T, 3, 3).
-    Raises :class:`RendererError` on a containment violation (the OptiX
-    validation-mode AS-check analog).  One device reduction; only runs in
-    debug mode, so the cost is opt-in.
-    """
-    import jax.numpy as jnp
+    * its LBVH is well formed (every leaf reachable exactly once, every
+      child box inside its parent's);
+    * every leaf box bounds the scene's current triangle, and every row of
+      the kernel's leaf table holds that triangle's v0, e1, e2 — a refit
+      that did not run fails here;
+    * every row of the kernel's node table holds its children's boxes and
+      ids.
 
-    from optix_ray_tracer_tpu.ops.sweep import CHUNK
+    Raises :class:`RendererError` on a violation (the OptiX
+    validation-mode AS-check analog).  Host-side; only runs in debug
+    mode, so the cost is opt-in."""
+    import numpy as np
 
-    n_pad = clusters.prim_index.shape[0]
-    C = n_pad // CHUNK
-    sorted_tris = jnp.asarray(tri_vertices, jnp.float32)[clusters.prim_index]
-    valid = (jnp.arange(n_pad) < num_tris)[:, None]
-    lo = jnp.where(valid, jnp.min(sorted_tris, axis=1), jnp.inf)
-    hi = jnp.where(valid, jnp.max(sorted_tris, axis=1), -jnp.inf)
-    clo = jnp.min(lo.reshape(C, CHUNK, 3), axis=1)
-    chi = jnp.max(hi.reshape(C, CHUNK, 3), axis=1)
-    empty = jnp.isnan(clusters.cluster_min[:, 0])
-    extent = jnp.nanmax(clusters.cluster_max) - jnp.nanmin(clusters.cluster_min)
-    eps = 1e-4 * jnp.maximum(extent, 1.0)
-    ok = ((clo >= clusters.cluster_min - eps)
-          & (chi <= clusters.cluster_max + eps)) | empty[:, None] \
-        | jnp.isinf(clo)   # pure-padding groups inside a non-empty cluster
-    bad = int(np.asarray(jnp.sum(~ok)))
+    from optix_ray_tracer_tpu.ops.bvh import validate_lbvh
+
+    bvh = intersector.bvh
+    report = validate_lbvh(bvh)
+    report["triangle_count"] = scene.triangle_count == bvh.num_prims
+    if report["triangle_count"]:
+        def close(x, y):
+            return bool(np.allclose(x, y, rtol=1e-6, atol=1e-6))
+
+        n_internal = bvh.num_prims - 1
+        v = np.asarray(scene.triangles.vertices)[np.asarray(bvh.prim_index)]
+        nmin, nmax = np.asarray(bvh.node_min), np.asarray(bvh.node_max)
+        left, right = np.asarray(bvh.left), np.asarray(bvh.right)
+        report["leaf_boxes"] = (close(nmin[n_internal:], v.min(1))
+                                and close(nmax[n_internal:], v.max(1)))
+        report["leaf_table"] = close(
+            np.asarray(intersector.leaves)[:, :9],
+            np.concatenate([v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]], 1))
+        nodes = np.asarray(intersector.nodes)
+        ids = np.ascontiguousarray(nodes[:, 12:14]).view(np.int32)
+        report["node_table"] = (
+            close(nodes[:, :12], np.concatenate(
+                [nmin[left], nmax[left], nmin[right], nmax[right]], 1))
+            and bool((ids == np.stack([left, right], 1)).all()))
+    bad = [k for k, ok in report.items() if not ok]
     if bad:
-        raise RendererError(
-            f"accel validation failed: {bad} cluster-containment "
-            f"violations (debug-mode)")
-    LOG.debug("accel validation ok: %d clusters", C)
+        raise RendererError(f"accel validation failed: {bad} (debug-mode)")
+    LOG.debug("accel validation ok: %d triangles", intersector.num_tris)
 
 
 def maybe_validate_accel(intersector, scene) -> None:
     """Debug-mode hook called by the frontends on every build/refit."""
     if not DEBUG_MODE or intersector is None:
         return
-    from optix_ray_tracer_tpu.ops.march import MarchIntersector
-
-    if isinstance(intersector, MarchIntersector):
-        validate_clusters(intersector.clusters, scene.triangles.vertices,
-                          intersector.num_tris)
+    validate_accel(intersector, scene)

@@ -1,43 +1,41 @@
 """Persistent XLA compilation cache — the PTX/module-cache analog.
 
 The reference caches compiled OptiX modules/pipelines so later runs skip
-PTX JIT (reference: OptiX module cache via the driver's disk cache; the
-renderer also bakes per-file GAS caches, src/Global/RendererMesh.cu).
-The TPU analog is XLA's persistent compilation cache: the fused
-animation chunk alone costs minutes of Mosaic/XLA compile per process,
-all of it byte-identical across runs of the same configuration.
+PTX JIT (OptiX module cache via the driver's disk cache).  Here that is
+XLA's persistent compilation cache: the fused animation chunk costs tens of
+seconds of compile per process, all of it identical across runs of the same
+configuration.
 
-Enabled by the CLI, bench, and viewer entry points (NOT on package
-import — a library must not mutate global jax config for its host
-process).  Opt out with OPTIX_TPU_NO_COMPILE_CACHE=1 or a custom
-location via OPTIX_TPU_COMPILE_CACHE_DIR.
+Enabled by the CLI, bench, and viewer entry points (not on package import —
+a library must not mutate global jax config for its host process).  Where
+``JAX_COMPILATION_CACHE_DIR`` is set, jax itself reads it and this module
+sets no directory; otherwise the cache lives at the fixed path
+``<checkout>/.jax_cache`` (the path is part of the cache key, so it must
+not move between runs).
 """
 
 from __future__ import annotations
 
 import os
 
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
 
-def enable_compilation_cache() -> str | None:
-    """Point jax at a persistent on-disk compilation cache.
 
-    Returns the cache dir, or None when disabled by env or unavailable.
+def enable_compilation_cache() -> str:
+    """Turn on the persistent compilation cache; returns its directory.
+
     Safe to call multiple times and before/after backend init (jax reads
-    the config at compile time).
-    """
-    if os.environ.get("OPTIX_TPU_NO_COMPILE_CACHE"):
-        return None
-    cache_dir = os.environ.get("OPTIX_TPU_COMPILE_CACHE_DIR") or \
-        os.path.join(os.path.expanduser("~"), ".cache",
-                     "optix_ray_tracer_tpu", "xla")
+    the config at compile time)."""
     import jax
 
-    try:
+    cache_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not cache_dir:
+        cache_dir = DEFAULT_CACHE_DIR
         os.makedirs(cache_dir, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", cache_dir)
-        # the animation chunk compiles in minutes; even sub-second entries
-        # (per-file rebuilds, quantizers) are worth keeping
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # pragma: no cover - old jax without the knobs
-        return None
+    # the animation chunk compiles in tens of seconds; even sub-second
+    # entries (per-file rebuilds, quantizers) are worth keeping
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     return cache_dir

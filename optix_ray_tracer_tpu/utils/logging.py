@@ -3,7 +3,7 @@
 The reference logs through SDL (~80 call sites) and fails fast with
 per-subsystem exit codes: VTK -1, config -2, SDL -100, CUDA -200,
 OptiX -300, VK -400, D3D -500 (``include/Global/HostFunctions.cuh:147-182``,
-``include/Util/VTKMeshReader.cuh:7``).  The TPU framework maps those to a
+``include/Util/VTKMeshReader.cuh:7``).  This framework maps those to a
 typed exception hierarchy (libraries should raise, not exit) plus standard
 ``logging`` with a renderer-wide logger.
 """
@@ -18,7 +18,7 @@ LOG = logging.getLogger("optix_ray_tracer_tpu")
 # Exit codes kept for CLI compatibility with the reference's conventions.
 EXIT_VTK = -1
 EXIT_CONFIG = -2
-EXIT_DEVICE = -200   # CUDA analog: JAX/TPU runtime failures
+EXIT_DEVICE = -200   # CUDA analog: JAX device runtime failures
 
 
 class RendererError(RuntimeError):

@@ -3,7 +3,7 @@ JSONL emission and jax.profiler hooks.
 
 The reference has no profiling beyond its frame pacer
 (``SDL_GraphicsWindow.cu:265-274``) and suggests MangoHud externally
-(docs/configuration.md:29); the TPU framework makes observability
+(docs/configuration.md:29); this framework makes observability
 first-class (SURVEY.md section 5.1/5.5).
 """
 

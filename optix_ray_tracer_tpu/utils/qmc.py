@@ -2,7 +2,7 @@
 
 The reference samples with per-pixel cuRAND states
 (``src/Global/HostFunctions.cu:122-140``) — pure pseudo-random, variance
-~ 1/N.  This module provides the quasi-Monte-Carlo upgrade the TPU
+~ 1/N.  This module provides the quasi-Monte-Carlo upgrade the stateless
 design makes natural: **padded 2D Sobol sequences with hash-based Owen
 scrambling** (Burley, "Practical Hash-Based Owen Scrambling", JCGT
 2020).  Each (pixel, bounce, purpose) gets its own randomized sequence,
@@ -18,7 +18,7 @@ indexed by the sample counter:
   replayable, shard-safe, stateless under jit, exactly like the PCG4D
   path (utils/rng.py).
 
-Everything is uint32 bit arithmetic on the VPU — no tables beyond 32x4
+Everything is uint32 bit arithmetic — no tables beyond 32x4
 direction-number constants, no gathers.
 
 Integrators opt in with ``sampler="sobol"`` (io/config.py key

@@ -2,7 +2,7 @@
 
 The reference keeps one mutable ``curandState`` per pixel, seeded
 ``tid ^ clock64()`` (``src/Global/HostFunctions.cu:122-140``) — inherently
-stateful and non-replayable.  The TPU-native design replaces it with a pure
+stateful and non-replayable.  This design replaces it with a pure
 counter hash: every random number is a function of
 ``(pixel_id, sample_index, bounce, dimension, seed)``.  This makes sampling
 
@@ -13,7 +13,7 @@ counter hash: every random number is a function of
 
 Hash: PCG4D (Jarzynski & Olano, JCGT 2020, "Hash Functions for GPU
 Rendering") — 4 lanes of LCG + cross-lane mixing + xorshift; pure uint32
-VPU ops, no gathers.
+elementwise ops, no gathers.
 """
 
 from __future__ import annotations

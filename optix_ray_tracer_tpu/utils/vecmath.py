@@ -1,10 +1,10 @@
 """Batched 3-vector math for the renderer core.
 
-TPU-native counterpart of the reference's device math library
+Counterpart of the reference's device math library
 (``include/Global/DeviceFunctions.cuh:230-546``): instead of float3 operator
 overloads on scalars-in-registers, every op here is written over arrays whose
 last axis is the component axis, so they vectorize across whole ray batches
-on the VPU and fuse under XLA.
+and fuse under XLA.
 
 All functions are shape-polymorphic over leading axes: ``(..., 3)``.
 """

@@ -4,7 +4,7 @@ Trains the KPCN (render/neural_denoise.py) for a few steps on cheap
 SYNTHETIC noisy/clean pairs — no rendering — and checks that optimization
 moves and the filter beats the raw input.  Guards the in-repo trainer
 (render/train_denoiser.py) against rot without paying the full
-render-and-train cost (which runs on TPU via its __main__).
+render-and-train cost (which runs on an accelerator via its __main__).
 """
 
 import numpy as np

@@ -288,6 +288,73 @@ class TestTextures:
         assert floor.std() > 0.01
 
 
+def _filtered_png(img: np.ndarray, filters) -> bytes:
+    """Encode (H, W, C) uint8 as a PNG whose row y uses filter filters[y]
+    (PNG spec section 9), predicting from the original neighbours; a
+    filter byte above 4 is written as is over unfiltered bytes."""
+    import struct
+    import zlib
+
+    h, w, c = img.shape
+    x = np.zeros((h + 1, w + 1, c), np.int32)
+    x[1:, 1:] = img
+    a, b, cc = x[1:, :-1], x[:-1, 1:], x[:-1, :-1]
+    pa, pb, pc = np.abs(b - cc), np.abs(a - cc), np.abs(a + b - 2 * cc)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+    preds = [np.zeros_like(a), a, b, (a + b) >> 1, paeth]
+    rows = [bytes([f]) + ((x[y + 1, 1:] - preds[f if f < 5 else 0][y]) & 255)
+            .astype(np.uint8).tobytes() for y, f in enumerate(filters)]
+
+    def chunk(tag, payload):
+        return (struct.pack(">I", len(payload)) + tag + payload
+                + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
+
+    color_type = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+            + chunk(b"IEND", b""))
+
+
+class TestReadPng:
+    @pytest.mark.parametrize("channels", [1, 2, 3, 4])
+    @pytest.mark.parametrize("filters", ["none", "sub", "up", "average",
+                                         "paeth", "mixed"])
+    def test_filters_round_trip(self, channels, filters):
+        from optix_ray_tracer_tpu.utils.color import read_png
+
+        rng = np.random.default_rng(channels)
+        h, w = 9, 13
+        img = rng.integers(0, 256, (h, w, channels), dtype=np.uint8)
+        kinds = ["none", "sub", "up", "average", "paeth"]
+        rows = (rng.integers(0, 5, h) if filters == "mixed"
+                else [kinds.index(filters)] * h)
+        np.testing.assert_array_equal(read_png(_filtered_png(img, rows)),
+                                      img)
+
+    def test_bad_filter_type_raises(self):
+        from optix_ray_tracer_tpu.utils.color import read_png
+
+        img = np.zeros((4, 5, 3), np.uint8)
+        with pytest.raises(ValueError, match="filter"):
+            read_png(_filtered_png(img, [0, 1, 5, 0]))
+
+    def test_load_texture_png(self, tmp_path):
+        """A filtered RGB PNG texture loads to linear floats."""
+        from optix_ray_tracer_tpu.scene.textures import load_texture
+        from optix_ray_tracer_tpu.utils.color import srgb_to_linear
+
+        img = np.random.default_rng(5).integers(0, 256, (6, 7, 3),
+                                                dtype=np.uint8)
+        p = tmp_path / "tex.png"
+        p.write_bytes(_filtered_png(img, [4, 1, 3, 2, 0, 4]))
+        tex = load_texture(str(p))
+        assert tex.shape == (6, 7, 3)
+        np.testing.assert_allclose(
+            tex, np.asarray(srgb_to_linear(img / np.float32(255.0))),
+            rtol=1e-6, atol=1e-7)
+
+
 class TestDenoise:
     @pytest.mark.slow
     def test_reduces_noise_preserves_edges(self):
@@ -340,8 +407,9 @@ class TestDenoise:
 
 class TestViewer:
     def test_mjpeg_stream_and_input(self):
-        """ViewerServer end-to-end on a stub render_fn: JPEG multipart
-        parts, input endpoints, clean quit."""
+        """ViewerServer end-to-end on a stub render_fn: PNG multipart
+        parts (decoded back to the rendered frame), input endpoints, clean
+        quit."""
         import urllib.request
         import numpy as np
         from optix_ray_tracer_tpu.render.viewer import ViewerServer
@@ -365,11 +433,13 @@ class TestViewer:
             frame = srv.latest_frame()
             assert frame is not None
             data, ctype = frame
-            assert ctype == b"image/jpeg"
-            assert data[:2] == b"\xff\xd8"          # JFIF SOI marker
+            assert ctype == b"image/png"
+            from optix_ray_tracer_tpu.utils.color import read_png
+            np.testing.assert_array_equal(
+                read_png(data), np.full((12, 16, 4), 128, np.uint8))
             with urllib.request.urlopen(f"{base}/stream", timeout=5) as r:
                 head = r.read(64)
-            assert b"--frame" in head and b"image/jpeg" in head
+            assert b"--frame" in head and b"image/png" in head
             for path, code in [("/key?k=w", 204), ("/look?dx=5&dy=-3", 204),
                                ("/look?dx=abc", 204)]:
                 req = urllib.request.urlopen(base + path, timeout=5)

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import pytest
 
 from optix_ray_tracer_tpu.ops.traverse import make_intersector
-from optix_ray_tracer_tpu.ops.march import make_march_intersector
+from optix_ray_tracer_tpu.ops import gpu_traverse
 from optix_ray_tracer_tpu.render import wavefront
 from optix_ray_tracer_tpu.render.film import Film
 from optix_ray_tracer_tpu.render.pathtracer import render_path
@@ -209,9 +209,9 @@ class TestCornell:
 
 
 class TestMarchVsBVHImage:
-    """Two independent accelerated intersectors (per-ray-stack LBVH vs the
-    production block marcher) must produce the same image — cross-oracle
-    coverage retained from the retired packet intersector (PARITY.md)."""
+    """Two accelerated intersectors (the plain XLA LBVH walk with spheres
+    in the tree vs the production traversal kernel, in interpret mode)
+    must produce the same image."""
 
     @pytest.mark.slow
     def test_matches_binary_bvh_image(self):
@@ -225,7 +225,7 @@ class TestMarchVsBVHImage:
             triangles=Triangles.from_arrays(v, n, m))
         cam = Camera.look_at((3, 0, 0.3), (0, 0, 0), (0, 0, 1))
         bi = make_intersector(scene)
-        pi = make_march_intersector(scene)
+        pi = gpu_traverse.build(scene, interpret=True)
         img_b, _, _ = wavefront.render(scene, mats, cam, 32, 24, spp=1,
                                        seed=1, intersector=bi, jitter=False)
         img_p, _, _ = wavefront.render(scene, mats, cam, 32, 24, spp=1,
@@ -238,7 +238,7 @@ class TestMarchVsBVHImage:
     def test_cornell_with_march(self):
         scene, mats, cam = build_cornell_box()
         lights = collect_area_lights(scene, mats)
-        pi = make_march_intersector(scene)
+        pi = gpu_traverse.build(scene)
         img, _, _ = render_path(scene, mats, lights, cam, 24, 24, spp=8,
                                 seed=3, intersector=pi)
         a = np.asarray(img)

@@ -189,19 +189,69 @@ class TestDebugMode:
         import jax.numpy as jnp
 
         from optix_ray_tracer_tpu.io.meshgen import sphere_with_n_triangles
-        from optix_ray_tracer_tpu.ops.sweep import build_clusters
+        from optix_ray_tracer_tpu.ops import gpu_traverse
+        from optix_ray_tracer_tpu.scene.geometry import (
+            Scene, Spheres, Triangles,
+        )
         from optix_ray_tracer_tpu.utils import debug
         from optix_ray_tracer_tpu.utils.logging import RendererError
 
         v, _ = sphere_with_n_triangles(2000)
-        clusters = build_clusters(v)
-        debug.validate_clusters(clusters, jnp.asarray(v), len(v))  # passes
+        scene = Scene(spheres=Spheres.empty(),
+                      triangles=Triangles.from_arrays(v))
+        engine = gpu_traverse.build(scene)
+        debug.validate_accel(engine, scene)  # passes
 
-        bad = dataclasses.replace(
-            clusters, cluster_max=clusters.cluster_max.at[0].set(
-                clusters.cluster_min[0]))
+        bvh = engine.bvh
+        bad = dataclasses.replace(engine, bvh=dataclasses.replace(
+            bvh, node_max=bvh.node_max.at[0].set(bvh.node_min[0])))
         with pytest.raises(RendererError):
-            debug.validate_clusters(bad, jnp.asarray(v), len(v))
+            debug.validate_accel(bad, scene)
+
+    @pytest.mark.parametrize("fault", ["no_refit", "leaf_table", "node_box",
+                                       "node_ids", "other_scene"])
+    def test_accel_validation_catches_stale_accel(self, fault):
+        """An engine out of step with the scene it traces fails validation:
+        a refit that did not run after the vertices moved, kernel tables
+        that disagree with the tree, or a scene of another size."""
+        import dataclasses
+
+        from optix_ray_tracer_tpu.io.meshgen import sphere_with_n_triangles
+        from optix_ray_tracer_tpu.ops import gpu_traverse
+        from optix_ray_tracer_tpu.scene.geometry import (
+            Scene, Spheres, Triangles,
+        )
+        from optix_ray_tracer_tpu.utils import debug
+        from optix_ray_tracer_tpu.utils.logging import RendererError
+
+        def scene_of(v):
+            return Scene(spheres=Spheres.empty(),
+                         triangles=Triangles.from_arrays(v))
+
+        v, _ = sphere_with_n_triangles(500)
+        scene = scene_of(v)
+        moved = scene_of(np.asarray(v) + 0.05 * np.sin(4.0 * np.asarray(v)))
+        engine = gpu_traverse.build(scene)
+        refitted = gpu_traverse.refit(engine, moved)
+        debug.validate_accel(refitted, moved)  # the refit passes
+
+        if fault == "no_refit":
+            bad, target = engine, moved
+        elif fault == "leaf_table":
+            bad, target = dataclasses.replace(
+                refitted, leaves=refitted.leaves.at[3, 1].add(0.01)), moved
+        elif fault == "node_box":
+            bad, target = dataclasses.replace(
+                refitted, nodes=refitted.nodes.at[2, 4].add(0.01)), moved
+        elif fault == "node_ids":
+            bad, target = dataclasses.replace(
+                refitted, nodes=refitted.nodes.at[:, 12:14].set(
+                    refitted.nodes[:, 13:11:-1])), moved
+        else:
+            v2, _ = sphere_with_n_triangles(900)
+            bad, target = refitted, scene_of(v2)
+        with pytest.raises(RendererError):
+            debug.validate_accel(bad, target)
 
     def test_debug_mode_cli_flag(self, tmp_path, monkeypatch):
         import jax

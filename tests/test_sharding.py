@@ -144,14 +144,13 @@ class TestPathSharding:
 
 
 class TestMarchSharding:
-    """The PRODUCTION intersector (fused Pallas block marcher) under
-    shard_map — VERDICT round-1 weak item 3: sharding was only proven over
-    the brute-force path."""
+    """The PRODUCTION intersector (the traversal engine) under shard_map,
+    beside the brute-force path."""
 
     @pytest.mark.slow
     def test_triangle_scene_march_matches_single_device(self):
         from optix_ray_tracer_tpu.io.meshgen import sphere_with_n_triangles
-        from optix_ray_tracer_tpu.ops.march import make_march_intersector
+        from optix_ray_tracer_tpu.ops import gpu_traverse
 
         mb = MaterialBuilder()
         ground = mb.add_rough((0.70, 0.60, 0.50))
@@ -162,7 +161,7 @@ class TestMarchSharding:
             spheres=Spheres.from_list([((0, 0, -100.5), 100.0, ground)]),
             triangles=Triangles.from_arrays(v, n, body))
         cam = Camera.look_at((4.0, 0.0, 0.5), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
-        intersector = make_march_intersector(scene)
+        intersector = gpu_traverse.build(scene)
 
         ref, _, _ = wavefront.render(scene, mats, cam, W, H, spp=8, seed=11,
                                      intersector=intersector)
@@ -286,18 +285,11 @@ class TestShardedAnimation:
         """Default route: the FUSED sharded chunk scan (one shard_map
         around refit+render+temporal+denoise).
 
-        The exactness contract (PARITY.md "sharded animation"): when
-        every band routes its camera wave through the SAME engine as the
-        full frame (bands tile cleanly -> tile-raster engine, globally
-        depth-ordered schedule), frames are bit-identical.  tile=3 on
-        the 32x24 frame gives 8-row bands with the full frame's own
-        8x32 tiles — asserted array_equal.
-
-        When a band CANNOT tile (tile=8 -> 3-row bands), its camera wave
-        falls back to the sorted marcher, whose fp-tie winners can
-        differ from the raster engine's by 1 ulp (ops/raster.py
-        narrow-dot note) — asserted allclose at 1-ulp relative
-        tolerance with a bounded mismatch count."""
+        The exactness contract: every band traces its rays with the same
+        per-ray engine as the full frame, so frames are bit-identical
+        (tile=3: 8-row bands, asserted array_equal).  tile=8 (3-row
+        bands) is held to 1-ulp relative tolerance with a bounded
+        mismatch count."""
         from optix_ray_tracer_tpu.models import renderer_time
         from optix_ray_tracer_tpu.parallel.animation import (
             render_frames_sharded,

@@ -1,8 +1,8 @@
-"""End-to-end config-4/5 throughput (VERDICT r3 #8) + NEE-wave width
-sweep for the bundle engine.
+"""End-to-end config-4/5 path-tracing throughput in spp/s.
 
-Honest timing: host-fetch sync after each measured batch (compile
-excluded, steady-state marginal spp/s like PERF.md round-2/3).
+Run on the GPU: ``python tools/e2e_bench.py [45|5h]``.  Each config is
+compiled and warmed once, then timed with ``block_until_ready`` (best of
+``reps``), with the production intersector (``choose_intersector``).
 """
 
 from __future__ import annotations
@@ -11,7 +11,6 @@ import sys
 import time
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 sys.path.insert(0, ".")
@@ -22,10 +21,6 @@ from optix_ray_tracer_tpu.render.pathtracer import render_path
 from optix_ray_tracer_tpu.utils.jitcache import enable_compilation_cache
 
 enable_compilation_cache()
-
-
-def sync(x):
-    return float(jnp.sum(jnp.asarray(x, jnp.float32)))
 
 
 def run_config(num, spp_batch=1, reps=3, **kw):
@@ -45,71 +40,17 @@ def run_config(num, spp_batch=1, reps=3, **kw):
         return img
 
     jrender = jax.jit(render)
-    sync(jrender(0))                     # compile + warm
+    jrender(0).block_until_ready()       # compile + warm
     best = np.inf
     for r in range(reps):
         t0 = time.perf_counter()
-        img = jrender(r + 1)
-        sync(img)
+        jrender(r + 1).block_until_ready()
         best = min(best, time.perf_counter() - t0)
     spp_s = spp_batch / best
     print(f"config {num} ({cfg['name']}, {w}x{h}, depth "
           f"{cfg['max_depth']}): {best:.2f} s / {spp_batch} spp = "
           f"{spp_s:.3f} spp/s")
     return spp_s
-
-
-def calib_config5():
-    """VERDICT r3 #6 / r4 #7: the schedule-capacity auto-calibration
-    (measure_pair_count -> round_pc_max) validated on a SECOND scene —
-    config-5's Sponza-class mesh — with zero scene-specific constants.
-    Times the camera wave at the heuristic capacity (the product
-    default), the calibrated capacity, and the bench scene's hand-swept
-    6144 for reference."""
-    from optix_ray_tracer_tpu.ops.march import DEFAULT_GRANULARITY
-    from optix_ray_tracer_tpu.ops.raster import (
-        default_pc_max, measure_pair_count, round_pc_max,
-    )
-    from optix_ray_tracer_tpu.ops.raster import pick_camera_tiles
-
-    cfg = benchmarks.ALL_CONFIGS[5]()
-    inter = choose_intersector(cfg["scene"])
-    w, h = cfg["width"], cfg["height"]
-    cam = cfg["camera"]
-    o, d = cam.generate_rays(w, h)
-    th, tw = pick_camera_tiles(h, w)
-    o = o.reshape(h // th, th, w // tw, tw, 3).swapaxes(1, 2).reshape(-1, 3)
-    d = d.reshape(h // th, th, w // tw, tw, 3).swapaxes(1, 2).reshape(-1, 3)
-    W = th * tw
-    R = o.shape[0]
-    nb = -(-R // W)
-    G = DEFAULT_GRANULARITY
-    tmin = jnp.full((R,), 1e-3, jnp.float32)
-    tmax = jnp.full((R,), 1e16, jnp.float32)
-    pc = measure_pair_count(inter.raster, inter.clusters, o, d, tmin,
-                            tmax, "origin", o[0], block_rays=W,
-                            granularity=G)
-    C = inter.clusters.num_clusters
-    caps = {
-        "heuristic (product default)": default_pc_max(nb, C, G),
-        "calibrated (measured*1.15)": round_pc_max(pc),
-        "bench hand constant 6144": 6144,
-    }
-    print(f"config5 camera wave: {R} rays, W={W} ({th}x{tw} tiles), "
-          f"g={G}, measured pairs={pc}")
-    for name, cap in caps.items():
-        f = jax.jit(lambda o, d, cap=cap: inter.intersect_from(
-            cfg["scene"], o, d, mode="origin", point=o[0],
-            block_rays=W, pc_max=int(cap)).t)
-        sync(f(o, d))
-        best = np.inf
-        for _ in range(5):
-            t0 = time.perf_counter()
-            sync(f(o, d))
-            best = min(best, time.perf_counter() - t0)
-        print(f"  pc_max={int(cap):>7} [{name}]: {best*1e3:.1f} ms = "
-              f"{R/best/1e6:.1f} Mrays/s"
-              + ("  (OVERFLOW -> marcher)" if pc > cap else ""))
 
 
 if __name__ == "__main__":
@@ -120,5 +61,3 @@ if __name__ == "__main__":
         run_config(5)
     if "5h" in which:
         run_config(5, width=960, height=544)
-    if "calib" in which:
-        calib_config5()

@@ -1,4 +1,4 @@
-"""Interactive operating point (VERDICT r3 #4): stage-split the two
+"""Interactive operating point: stage-split the two
 targets — reference animation <= 0.2 s/frame at 1200x800, viewer
 >= 15 fps at 640x480 — so the binding cost is measured, not guessed.
 
@@ -10,7 +10,7 @@ Parts (select via argv, default all):
             ms/frame vs uint8 fetch ms/frame vs host JPEG encode, the
             three serial stages of the viewer loop.
 
-Honest timing: host-fetch sync after every measured quantity.
+Timing: block_until_ready / host fetch around every measured quantity.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def bench_anim(max_frames: int = 120):
     """Steady-state s/frame of the fused reference animation (quantized
     uint8 fetch, the production fast path), with a per-frame timeline so
     file boundaries (rebuild + host VTK prep) and chunk fetches are
-    visible against the VERDICT <= 0.2 s/frame target."""
+    visible against the <= 0.2 s/frame target."""
     from optix_ray_tracer_tpu.models import renderer_time
 
     cfg = _ref_config()
@@ -102,11 +102,8 @@ def bench_viewer():
                 return jnp.concatenate(
                     [u8, jnp.full(u8.shape[:2] + (1,), 255, jnp.uint8)],
                     axis=-1)
-            # lax.map (a scan), NOT vmap: the production viewer's fused
-            # chunk scans frames, keeping the marcher's HBM woop array
-            # loop-INVARIANT.  vmap would batch the pallas_call and give
-            # the ANY-space operand a per-step index map, which Mosaic
-            # rejects ("blocks must span the array in memory space ANY")
+            # lax.map (a scan), like the production viewer's fused
+            # chunk, which scans frames
             return jax.lax.map(one, seed + jnp.arange(4, dtype=jnp.uint32))
 
         out = chunk4(jnp.uint32(1))
